@@ -3,15 +3,16 @@
 The environment ships no coverage.py/pytest-cov; Python 3.12's
 sys.monitoring provides cheap LINE events instead.  Executable lines
 come from the compiled code objects' co_lines tables.  Expected-zero
-files on the CPU-forced suite: ops/pallas_* (TPU-gated tests),
-utils/timing.py (bench-only), parallel/mesh.py mostly (exercised in the
-uninstrumented 8-device subprocess dryrun).
+files on the CPU-forced suite: the GPU kernels' grid plumbing in
+ops/pallas_* (gpu-marked tests), utils/timing.py (bench-only),
+parallel/mesh.py mostly (exercised in the uninstrumented 8-device
+subprocess dryrun).
 
 Round-4 sweep results: 78.6% -> 81.8% -> 84.2% total after two rounds of
 gap-driven test additions (test_error_paths.py, test_edge_coverage.py);
 the first round also surfaced a real bug (the play command's format
 handling at segment boundaries).  At 84.2% the remaining gaps are the
-expected-zero files above plus TPU-only corpus branches.
+expected-zero files above plus the GPU-only corpus branches.
 Usage: python experiments/line_coverage.py
 """
 import os

@@ -1,4 +1,4 @@
-"""qoaudio_tpu — a TPU-native QOA ("Quite OK Audio") codec framework.
+"""qoaudio_tpu — a bit-exact QOA ("Quite OK Audio") codec framework.
 
 A ground-up re-design of the capabilities of the reference Rust crate
 ``qoaudio`` (rafaelcaricio/qoaudio): streaming + one-shot decode, one-shot
@@ -6,7 +6,8 @@ A ground-up re-design of the capabilities of the reference Rust crate
 source + audio sink, WAV tooling, and batched multi-chip corpus transcode.
 
 Two execution tiers share one bit-exact algorithm: JAX/XLA/Pallas device
-kernels for the batched HBM-resident deployment shape (frames decode in
+kernels (a Pallas encode kernel on a GPU) for the batched device-resident
+deployment shape (frames decode in
 parallel — each carries a full LMS snapshot; the encoder evaluates all 16
 scalefactor candidates as vector lanes with exact wrapping int32
 semantics), and a native C++ SIMD engine for the latency-bound host/IO

@@ -146,8 +146,8 @@ def _cmd_play(args) -> int:
     """Stream samples to an audio sink.
 
     ``--sink audio`` plays through the default output device (requires the
-    optional ``sounddevice`` package and an audio device — absent on TPU
-    hosts, in which case it falls back to WAV).  ``--sink wav`` (default)
+    optional ``sounddevice`` package and an audio device — absent on
+    headless servers, in which case it falls back to WAV).  ``--sink wav`` (default)
     renders to a WAV file; ``--sink raw`` streams raw PCM to stdout,
     pipeable into e.g. ``aplay -f S16_LE``.
     """

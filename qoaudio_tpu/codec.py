@@ -700,7 +700,7 @@ def encode_all_batch(
     prefix) for up to 2x aggregate mono throughput on real audio — see
     ``_encode_two_mono_native``.  Everything else (stereo+, non-native
     backends, an odd mono leftover) encodes per file.  For the batched
-    DEVICE path (HBM-resident corpus encode on TPU) use
+    DEVICE path (device-resident corpus encode on a GPU) use
     ``parallel.corpus.batch_encode`` instead — this is the latency-bound
     host sibling.
     """

@@ -1,20 +1,24 @@
 """Native host-runtime engine: build-on-demand C++ kernels via ctypes.
 
-The TPU device kernels (ops/) own the batched HBM-resident deployment
-path; this module owns the host/IO path (streaming objects, one-shot
+The device kernels (ops/) own the batched device-resident corpus path;
+this module owns the host/IO path (streaming objects, one-shot
 single-file transcode) where host<->device transfer latency dominates.
 See qoa_kernels.cpp for the kernel design notes.
 
 The shared library is compiled on first use with the local toolchain
-(g++ -O3 -march=native) and cached next to the source; everything
-degrades gracefully — ``available()`` returns False if no compiler or the
-build fails, and callers fall back to the numpy/JAX paths.
+(g++ -O3 -march=native) and cached next to the source under a name keyed
+on the source, the compiler flags and the host CPU's identity, so a
+library built on another machine is never loaded.  Everything degrades
+gracefully — ``available()`` returns False if no compiler or the build
+fails, and callers fall back to the numpy/JAX paths.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 import threading
 from typing import Optional
@@ -23,7 +27,16 @@ import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "qoa_kernels.cpp")
-_LIB_PATH = os.path.join(_HERE, "qoa_kernels.so")
+_LIB_DIR = _HERE
+
+# Flag tiers, tried in order.  -mprefer-vector-width=512: GCC otherwise
+# splits the 512-bit vector-extension ops into ymm pairs on AVX-512
+# targets (measured ~5-12% slower encode); harmless where unsupported.
+_FLAG_TIERS = (
+    ("-O3", "-march=native", "-mprefer-vector-width=512"),
+    ("-O3", "-march=native"),
+    ("-O2",),
+)
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -57,6 +70,49 @@ def _tune_allocator() -> None:
         pass
 
 
+def _cpuinfo() -> dict:
+    """First processor's fields of /proc/cpuinfo (empty where absent)."""
+    fields: dict = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    if fields:
+                        break
+                    continue
+                key, _, val = line.partition(":")
+                fields.setdefault(key.strip(), " ".join(val.split()))
+    except OSError:
+        pass
+    return fields
+
+
+def cpu_model() -> str:
+    info = _cpuinfo()
+    return info.get("model name") or platform.processor() or platform.machine()
+
+
+def cpu_identity() -> str:
+    """The host CPU's model and ISA flags: what -march=native compiles for."""
+    info = _cpuinfo()
+    return f"{cpu_model()} | {info.get('flags') or info.get('Features', '')}"
+
+
+def _lib_path() -> str:
+    """``qoa_kernels.<key>.so``: the key hashes the source, the flag tiers
+    and the CPU identity, so a changed source, a changed build recipe or
+    a library copied from another machine is rebuilt, never loaded."""
+    h = hashlib.sha256()
+    try:
+        with open(_SRC, "rb") as f:
+            h.update(f.read())
+    except OSError:
+        pass
+    h.update(repr(_FLAG_TIERS).encode())
+    h.update(cpu_identity().encode())
+    return os.path.join(_LIB_DIR, f"qoa_kernels.{h.hexdigest()[:16]}.so")
+
+
 def _build(force: bool = False) -> Optional[str]:
     """Compile the kernels; returns the .so path or None.
 
@@ -67,22 +123,12 @@ def _build(force: bool = False) -> Optional[str]:
     """
     if not os.path.exists(_SRC):
         return None
-    if (
-        not force
-        and os.path.exists(_LIB_PATH)
-        and os.path.getmtime(_LIB_PATH) >= os.path.getmtime(_SRC)
-    ):
-        return _LIB_PATH
-    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
+    path = _lib_path()
+    if not force and os.path.exists(path):
+        return path
+    tmp = f"{path}.{os.getpid()}.tmp"
     try:
-        # -mprefer-vector-width=512: GCC otherwise splits the 512-bit
-        # vector-extension ops into ymm pairs on AVX-512 targets (measured
-        # ~5-12% slower encode); harmless where unsupported (second try)
-        for flags in (
-            ["-O3", "-march=native", "-mprefer-vector-width=512"],
-            ["-O3", "-march=native"],
-            ["-O2"],
-        ):
+        for flags in _FLAG_TIERS:
             cmd = [
                 "g++", *flags, "-fno-strict-aliasing", "-shared", "-fPIC",
                 "-o", tmp, _SRC,
@@ -92,8 +138,8 @@ def _build(force: bool = False) -> Optional[str]:
             except (OSError, subprocess.TimeoutExpired):
                 return None
             if r.returncode == 0:
-                os.replace(tmp, _LIB_PATH)
-                return _LIB_PATH
+                os.replace(tmp, path)
+                return path
         return None
     finally:
         if os.path.exists(tmp):
@@ -120,7 +166,7 @@ def _load() -> Optional[ctypes.CDLL]:
         try:
             lib = ctypes.CDLL(path)
         except OSError:
-            # a stale/torn .so from an older interrupted build: rebuild once
+            # a torn .so from an interrupted copy or build: rebuild once
             path = _build(force=True)
             try:
                 lib = ctypes.CDLL(path) if path else None
@@ -176,10 +222,9 @@ def _load() -> Optional[ctypes.CDLL]:
         try:
             _bind(lib)
         except AttributeError:
-            # a stale .so from an older package version (reinstalls can
-            # leave one behind with a NEWER mtime than the fresh source):
-            # force one rebuild, then degrade gracefully — available()
-            # promises False rather than raising
+            # a library missing the current symbols: force one rebuild,
+            # then degrade gracefully — available() promises False rather
+            # than raising
             path = _build(force=True)
             try:
                 lib = ctypes.CDLL(path) if path else None

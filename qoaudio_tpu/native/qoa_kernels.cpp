@@ -1,7 +1,7 @@
 // Native host-runtime kernels for the qoaudio_tpu framework.
 //
-// Role in the architecture (SURVEY.md §1, layer L2): the TPU device path
-// (ops/decode.py, ops/encode.py) owns the batched HBM-resident deployment
+// Role in the architecture (SURVEY.md §1, layer L2): the device path
+// (ops/: the GPU kernels and their XLA forms) owns the batched deployment
 // shape; THIS module owns the host/IO path — streaming decoders, one-shot
 // single-file transcode — where per-call host<->device transfer latency
 // would dominate.  It mirrors the device kernels' *design*, not the
@@ -1368,7 +1368,7 @@ inline v16i halfmin(v16i v) {
 
 // Winner per 256-bit half by the lexicographic key
 // (rank_hi, rank_lo, first_hi, first_lo, sf) with unsigned lo limbs —
-// staged masked min-reductions (the same shape as the TPU kernel's argmin),
+// staged masked min-reductions (the same shape as the GPU kernel's argmin),
 // both channels of a pair vector at once.  Writes the winning lane index
 // (0-15) and key scalars per half.
 struct HalfWin {

@@ -1,84 +1,108 @@
-"""TPU decoder kernel: batched LMS reconstruction over frame x channel chains.
+"""XLA decoder kernel: batched LMS reconstruction over frame x channel chains.
 
-Design (TPU-first, cf. SURVEY.md §3.2):
+The device decoder on every platform (cf. SURVEY.md §3.2; a hand-written
+GPU kernel was measured on the H100 and gained nothing end to end, see
+PERF.md):
 
 * Every QOA frame serializes a full LMS snapshot in its header
-  (/root/reference/src/lib.rs:271-281), so **frames decode in parallel**.
-  The chain axis N = frames x channels maps to VPU lanes; ``lax.scan`` runs
-  over the <=256 slice windows of a frame with the 20-step recurrence fully
-  unrolled in registers.
+  (reference src/lib.rs:271-281), so **frames decode in parallel**.
+  The chain axis N = frames x channels is the vector axis; ``lax.scan``
+  runs over the <=256 slice windows of a frame with the 20-step
+  recurrence fully unrolled.
+* Input is the one staging format of every decode path: the raw
+  big-endian u64 slice words viewed as (W, N, 2) uint32 halves
+  (:func:`words_u32`), 8 bytes per slice per chain.  Byte order, the
+  scalefactor and the 3-bit codes are unpacked on the device.
 * All arithmetic is int32 with exact two's-complement wrapping, matching
-  the reference's ``wrapping_*`` ops (src/lib.rs:797-828).  XLA int32 wraps.
-* No gathers on device: the 16-entry scalefactor lookup is a constant-table
-  masked sum evaluated **once per slice**, and the 8-entry dequant row
-  collapses to four per-slice magnitudes selected by ``code >> 1`` with a
-  sign flip on code parity (dequant values are +/- pairs).
+  the reference's ``wrapping_*`` ops (src/lib.rs:797-828).
+* No gathers: the 16-entry scalefactor lookup is a masked select
+  evaluated **once per slice**, and the 8-entry dequant row collapses to
+  four per-slice magnitudes selected by ``code >> 1`` with a sign flip on
+  code parity (dequant values are +/- pairs).
 
-The decoder always reconstructs all 20 samples of a slice and truncation of
+The decoder always reconstructs all 20 samples of a slice; truncation of
 short final slices happens on the host, exactly like the reference
 (src/lib.rs:291-330).
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from .. import bitstream as bs
 from .. import format as fmt
 
-_SF_TAB = np.asarray(fmt.QOA_SCALEFACTOR_TAB, dtype=np.int32)  # (16,)
+_SF_TAB = [int(v) for v in fmt.QOA_SCALEFACTOR_TAB]
 _I32 = jnp.int32
+_U32 = jnp.uint32
 
 
-def _slice_magnitudes(sf):
-    """Per-chain dequant magnitudes [m0..m3] for this slice's scalefactor.
+def words_u32(words_be: np.ndarray) -> np.ndarray:
+    """Raw big-endian u64 slice words (W, N) -> (W, N, 2) uint32, no copy.
 
-    m_j == QOA_DEQUANT_MAG[sf, j], computed arithmetically from the
-    scalefactor value (round-ties-away of sf_val * {0.75, 2.5, 4.5, 7}):
-      m0 = (3v+2)>>2,  m1 = (5v+1)>>1,  m2 = (9v+1)>>1,  m3 = 7v
-    The 16-way scalefactor-value select runs once per slice, not per sample.
+    Each u64 is kept as its two in-memory halves; :func:`word_halves`
+    turns them into the logical (hi, lo) on the device.
     """
-    sf = sf.astype(jnp.int32)
+    words_be = np.ascontiguousarray(words_be, dtype=np.uint64)
+    return words_be.view(np.uint32).reshape(words_be.shape + (2,))
+
+
+def bswap32(x):
+    """Byte-reverse uint32 values."""
+    return (
+        (x >> 24)
+        | ((x >> 8) & _U32(0xFF00))
+        | ((x << 8) & _U32(0xFF0000))
+        | (x << 24)
+    )
+
+
+def word_halves(raw_hi, raw_lo):
+    """In-memory halves of a big-endian u64 -> logical (hi, lo) uint32."""
+    return bswap32(raw_hi), bswap32(raw_lo)
+
+
+def slice_magnitudes(sf):
+    """Per-chain dequant magnitudes [m0..m3] for a slice's scalefactor.
+
+    m_j == QOA_DEQUANT_MAG[sf, j], computed from the scalefactor value
+    (round-ties-away of sf_val * {0.75, 2.5, 4.5, 7}):
+      m0 = (3v+2)>>2,  m1 = (5v+1)>>1,  m2 = (9v+1)>>1,  m3 = 7v
+    """
     sfv = jnp.zeros_like(sf)
     for s in range(16):
-        sfv = sfv + jnp.where(sf == s, _I32(int(_SF_TAB[s])), _I32(0))
-    m0 = (3 * sfv + 2) >> 2
-    m1 = (5 * sfv + 1) >> 1
-    m2 = (9 * sfv + 1) >> 1
-    m3 = 7 * sfv
-    return m0, m1, m2, m3
+        sfv = jnp.where(sf == s, _SF_TAB[s], sfv)
+    return (3 * sfv + 2) >> 2, (5 * sfv + 1) >> 1, (9 * sfv + 1) >> 1, 7 * sfv
 
 
-def _dequant(code, mags):
-    """code (3-bit) -> dequantized residual, via magnitude select + parity."""
-    m0, m1, m2, m3 = mags
-    idx = code >> 1
-    mag = jnp.where(
-        idx < 2,
-        jnp.where(idx == 0, m0, m1),
-        jnp.where(idx == 2, m2, m3),
-    )
-    return jnp.where((code & 1) == 0, mag, -mag)
+def _decode_slice(carry, raw):
+    """One slice window for all chains: the 20-step LMS recurrence.
 
-
-def _decode_slice(carry, xs):
-    """One slice window for all chains: 20-step unrolled LMS recurrence.
-
-    carry: int32 (8, N) — rows 0-3 history, rows 4-7 weights.
-    xs: (sf (N,), codes (20, N)) int32.
-    Returns updated carry and the 20 reconstructed samples (20, N) int16.
+    carry: 8 int32 (N,) rows (history 0-3, weights 4-7); raw: (N, 2)
+    uint32 in-memory halves of the big-endian slice words.  Returns the
+    new carry and the 20 reconstructed samples (20, N) int16.
     """
-    h0, h1, h2, h3, w0, w1, w2, w3 = [carry[i] for i in range(8)]
-    sf, codes = xs
-    mags = _slice_magnitudes(sf)
-
+    h0, h1, h2, h3, w0, w1, w2, w3 = carry
+    hi, lo = word_halves(raw[:, 0], raw[:, 1])
+    m0, m1, m2, m3 = slice_magnitudes((hi >> 28).astype(_I32))
     outs = []
     for k in range(fmt.QOA_SLICE_LEN):
+        # 3-bit code k lives at u64 bits [57-3k, 59-3k]
+        if k <= 8:
+            code = (hi >> (25 - 3 * k)) & 7
+        elif k == 9:
+            code = ((hi & 1) << 2) | (lo >> 30)
+        else:
+            code = (lo >> (57 - 3 * k)) & 7
+        code = code.astype(_I32)
         prediction = (w0 * h0 + w1 * h1 + w2 * h2 + w3 * h3) >> 13
-        dq = _dequant(codes[k].astype(jnp.int32), mags)
+        idx = code >> 1
+        mag = jnp.where(
+            idx < 2, jnp.where(idx == 0, m0, m1), jnp.where(idx == 2, m2, m3)
+        )
+        dq = jnp.where((code & 1) == 0, mag, -mag)
         recon = jnp.clip(prediction + dq, -32768, 32767)
         outs.append(recon.astype(jnp.int16))
         delta = dq >> 4
@@ -87,23 +111,22 @@ def _decode_slice(carry, xs):
         w2 = w2 + jnp.where(h2 < 0, -delta, delta)
         w3 = w3 + jnp.where(h3 < 0, -delta, delta)
         h0, h1, h2, h3 = h1, h2, h3, recon
-
-    new_carry = jnp.stack([h0, h1, h2, h3, w0, w1, w2, w3])
-    return new_carry, jnp.stack(outs)
+    return (h0, h1, h2, h3, w0, w1, w2, w3), jnp.stack(outs)
 
 
-@functools.partial(jax.jit, static_argnames=())
-def decode_chains(state, sf, codes):
+@jax.jit
+def decode_chains(state, words):
     """Decode all slice windows of N independent chains.
 
     Args:
       state: int32 (8, N) — initial LMS (history rows 0-3, weights 4-7).
-      sf:    int32 (W, N) — per-window scalefactors.
-      codes: int32 (W, 20, N) — 3-bit residual codes.
+      words: uint32 (W, N, 2) — raw big-endian slice words
+        (:func:`words_u32`).
 
     Returns int16 (W, 20, N) reconstructed samples (untrimmed).
     """
-    _, ys = jax.lax.scan(_decode_slice, state, (sf, codes))
+    carry = tuple(state[i] for i in range(8))
+    _, ys = jax.lax.scan(_decode_slice, carry, words)
     return ys
 
 
@@ -123,17 +146,12 @@ def decode_batch(
     Np = max(pad_chains_to or N, N)
     Wp = max(pad_windows_to or W, W)
 
+    words_be, st = bs.batch_chain_arrays(batch)
+    words = np.zeros((Wp, Np), np.uint64)
+    words[:W, :N] = words_be
     state = np.zeros((8, Np), dtype=np.int32)
-    state[0:4, :N] = batch.history.reshape(N, 4).T
-    state[4:8, :N] = batch.weights.reshape(N, 4).T
+    state[:, :N] = st
 
-    sf = np.zeros((Wp, Np), dtype=np.int8)
-    sf[:W, :N] = batch.sf.transpose(1, 0, 2).reshape(W, N)
-    codes = np.zeros((Wp, fmt.QOA_SLICE_LEN, Np), dtype=np.int8)
-    codes[:W, :, :N] = (
-        batch.codes.transpose(1, 3, 0, 2).reshape(W, fmt.QOA_SLICE_LEN, N)
-    )
-
-    ys = np.asarray(decode_chains(jnp.asarray(state), jnp.asarray(sf), jnp.asarray(codes)))
+    ys = np.asarray(decode_chains(state, words_u32(words)))
     ys = ys[:W, :, :N].reshape(W, fmt.QOA_SLICE_LEN, F, C)
     return ys.transpose(2, 0, 1, 3).reshape(F, W * fmt.QOA_SLICE_LEN, C)

@@ -1,4 +1,7 @@
-"""TPU encoder kernel: all-16-scalefactor parallel search, bit-exact.
+"""XLA encoder kernel: all-16-scalefactor parallel search, bit-exact.
+
+The plain reference for the GPU encode kernel (ops/pallas_encode.py) and
+the device encoder on the CPU backend.
 
 Redesign of the reference's sequential best-of-16 search
 (/root/reference/src/lib.rs:495-596) for vector hardware:
@@ -14,7 +17,7 @@ Redesign of the reference's sequential best-of-16 search
 * Ranks are u64 in the reference; here they are accumulated in two uint32
   limbs (per-step increments err^2 <= (2^16-1)^2 and penalty^2 fit u32;
   carries propagate to a hi limb).  This avoids 64-bit integers entirely,
-  which keeps the kernel Pallas/Mosaic-friendly.
+  which keeps the kernel free of 64-bit types (JAX runs without x64).
 * The inter-slice LMS chain is inherently sequential (the bitstream
   depends on it), so it runs as ``lax.scan``; throughput comes from the
   16-candidate axis and from batching many channels/files as lanes
@@ -156,7 +159,7 @@ def _encode_slice(carry, xs):
     # A single 4-limb comparison chain — however phrased (nested booleans,
     # integer arithmetic, or masked min-reductions) — trips a pathological
     # XLA:CPU codegen cliff, measured ~4,000x slower than this form; the
-    # two-pass shape is also branch-free and VPU-friendly on TPU.
+    # two-pass shape is also branch-free.
     m_hi, m_lo = rank_hi[0], rank_lo[0]
     for s in range(1, _NSF):
         better = (rank_hi[s] < m_hi) | ((rank_hi[s] == m_hi) & (rank_lo[s] < m_lo))

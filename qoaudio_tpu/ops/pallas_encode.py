@@ -1,24 +1,23 @@
-"""Pallas/Mosaic TPU encoder kernel — the batched deployment path.
+"""GPU encoder kernel (Pallas, Triton route): the corpus encode hot path.
 
-Same algorithm as ops/encode.py (all 16 scalefactor candidates as lanes,
-two-pass lexicographic argmin, two-limb u32 rank; bit-exact with the
-reference's search per the SURVEY.md §3.3 proof), but hand-placed on the
-TPU memory hierarchy instead of relying on XLA fusion:
+Same algorithm and contract as :func:`ops.encode.encode_frames` (all 16
+scalefactor candidates evaluated at once, lexicographic argmin over
+(total rank, first-sample rank, scalefactor), two-limb u32 ranks;
+bit-exact with the reference's sequential search per SURVEY.md §3.3),
+shaped for a GPU instead of being left to XLA:
 
-* grid = (chain_tiles, frames): 128 chains per tile map to the VPU lane
-  axis, the 16 scalefactor candidates to sublanes — each intermediate is
-  one (16, 128) int32 plane, exactly two vregs;
-* the whole 20-step recurrence x 16 candidates for a window runs out of
-  registers/VMEM with ZERO HBM round-trips between ops (XLA materializes
-  several of these planes to HBM per step, which is the measured gap);
-* PCM blocks stream HBM->VMEM via the automatic grid pipeline (one frame
-  per grid step, double-buffered by Pallas);
-* the carried LMS lives in a VMEM scratch that persists across the frame
-  axis of the grid (TPU grids execute sequentially), so frame chunks chain
-  without host round-trips.
+* the grid covers chain blocks only.  Each program owns ``block`` chains
+  and runs the frame loop and the 256-window loop itself, with the LMS
+  carry in registers — nothing carries between programs, which run in
+  parallel and in no order;
+* a window is a (block, 16) plane: one thread per (chain, candidate).
+  The argmin over the 16 candidates is a reduction along axis 1, which
+  stays inside a warp;
+* Triton needs power-of-two loads, so the 20-sample axis is read one row
+  at a time.
 
-Reference behavior pinned: /root/reference/src/lib.rs:495-596 (search),
-:468-491 (slice packing), :455-466 (per-frame LMS snapshots).
+XLA runs the same recurrence as F x 256 sequential loop iterations over
+the whole chain axis; here the loops live inside one kernel launch.
 """
 
 from __future__ import annotations
@@ -27,111 +26,87 @@ import functools
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from .. import format as fmt
 
-LANES = 128
 _NSF = fmt.QOA_NUM_SCALEFACTORS  # 16
 _SLEN = fmt.QOA_SLICE_LEN  # 20
-_WPF = fmt.QOA_SLICES_PER_FRAME  # 256
 
 _I32 = jnp.int32
 _U32 = jnp.uint32
 
-def _compiler_params():
-    """Chain tiles are independent (dim 0 'parallel'); frames carry LMS
-    state through the scratch (dim 1 'arbitrary', must run in order)."""
-    for name in ("CompilerParams", "TPUCompilerParams"):
-        cls = getattr(pltpu, name, None)
-        if cls is not None:
-            try:
-                return cls(dimension_semantics=("parallel", "arbitrary"))
-            except TypeError:
-                pass
-    return None
-
-
-_COMPILER_PARAMS = _compiler_params()
+# Chains per program: one warp, one thread per (chain, candidate), so the
+# candidate reduction is warp-local.  Block 2 measured fastest of 2-32
+# (experiments/gpu_block_sweep.py; the kernel is latency-bound, so the
+# most programs win).
+BLOCK = 2
 
 _SF_TAB = [int(v) for v in fmt.QOA_SCALEFACTOR_TAB]
 _RECIP_TAB = [int(v) for v in fmt.QOA_RECIPROCAL_TAB]
 
 
-def _lane_constants(B=LANES):
-    """Per-candidate constants, derived in-kernel (Pallas kernels cannot
-    capture array constants): scalefactor id per sublane via iota, then
-    16-way masked sums for the value/reciprocal tables and the arithmetic
-    closed forms for the dequant magnitudes."""
-    s = jax.lax.broadcasted_iota(_I32, (_NSF, B), 0)
-    sfv = jnp.zeros((_NSF, B), _I32)
-    recip = jnp.zeros((_NSF, B), _I32)
+def candidate_constants(B: int):
+    """Per-candidate constants for a (B, 16) plane, built from iota (a
+    kernel cannot capture array constants): scalefactor index, its bits in
+    the slice word, the reciprocal, and the four dequant magnitudes from
+    the spec's closed forms."""
+    s = jax.lax.broadcasted_iota(_I32, (B, _NSF), 1)
+    sfv = jnp.zeros((B, _NSF), _I32)
+    recip = jnp.zeros((B, _NSF), _I32)
     for i in range(_NSF):
         sel = s == i
         sfv = jnp.where(sel, _SF_TAB[i], sfv)
         recip = jnp.where(sel, _RECIP_TAB[i], recip)
-    mags = [
+    mags = (
         (3 * sfv + 2) >> 2,
         (5 * sfv + 1) >> 1,
         (9 * sfv + 1) >> 1,
         7 * sfv,
-    ]
-    sfbits = (s.astype(_U32) << 28)
-    return sfbits, recip, mags
+    )
+    return s, s.astype(_U32) << 28, recip, mags
 
 
-def _window_body(x, length, carry, sfbits, recip, mags):
-    """One 20-sample window for one (16, LANES) candidate plane.
+def window_body(sample_row, length, carry, consts):
+    """Encode one 20-sample window for B chains, all 16 candidates.
 
-    x: (20, B) int32 samples; length: (1, B) int32 valid count —
-    or None for the full-window specialization, which drops the ~12
-    masking ops per sample (15% of the body; every window of a complete
-    frame has length 20, so batch transcodes run this variant for all but
-    each file's final frame).
-    carry: (8, B) int32 LMS; B (a multiple of 128 lanes) may hold several
-    independent 128-chain groups in one plane — wider planes give the VPU
-    independent work inside the 20-step dependency chain's shadow.
-    Returns (new_carry, word_hi, word_lo).
+    sample_row(k) -> (B,) int32 sample k of the window; length (B,) int32
+    valid samples (0 passes the state through); carry: 8 (B,) int32 LMS
+    rows (history 0-3, weights 4-7).  Returns (new carry, word_hi,
+    word_lo), the words (B,) uint32.  Pure jnp on (B, 16) planes: it is
+    the kernel's body and also runs as plain JAX.
     """
-    B = carry.shape[1]
-    H = [jnp.broadcast_to(carry[i : i + 1, :], (_NSF, B)) for i in range(4)]
-    W = [
-        jnp.broadcast_to(carry[4 + i : 5 + i, :], (_NSF, B))
-        for i in range(4)
-    ]
-    # rank_lo lives in the BIASED domain (x ^ 2^31, see the rank update
-    # below): unbiased 0 is int32 min
-    rank_lo = jnp.full((_NSF, B), jnp.iinfo(jnp.int32).min, _I32)
-    rank_hi = jnp.zeros((_NSF, B), _I32)
+    s, sfbits, recip, mags = consts
+    B = length.shape[0]
+
+    def plane(v):
+        return jnp.broadcast_to(v[:, None], (B, _NSF))
+
+    H = [plane(carry[i]) for i in range(4)]
+    W = [plane(carry[4 + i]) for i in range(4)]
+    rank_lo = jnp.zeros((B, _NSF), _U32)
+    rank_hi = jnp.zeros((B, _NSF), _I32)
     word_hi = sfbits
-    word_lo = jnp.zeros((_NSF, B), _U32)
+    word_lo = jnp.zeros((B, _NSF), _U32)
     first_lo, first_hi = rank_lo, rank_hi
 
     for k in range(_SLEN):
-        active = (
-            None if length is None
-            else jnp.broadcast_to(length > k, (_NSF, B))
-        )
+        active = plane(length > k)
 
         prediction = (W[0] * H[0] + W[1] * H[1] + W[2] * H[2] + W[3] * H[3]) >> 13
         ssum = W[0] * W[0] + W[1] * W[1] + W[2] * W[2] + W[3] * W[3]
         penalty = jnp.maximum((ssum >> 18) - 0x8FF, 0)
         pen_sq = (penalty * penalty).astype(_U32)
 
-        sample = jnp.broadcast_to(x[k : k + 1, :], (_NSF, B))
+        sample = plane(sample_row(k))
         residual = sample - prediction
         n = (residual * recip + (1 << 15)) >> 16
-        # sgn(v) == clip(v, -1, 1) for all ints — 2 ops instead of 3.
-        # (The away-from-zero bias must use BOTH signs: wrapping in the
-        # reciprocal multiply can flip sgn(n) vs sgn(residual), and the
-        # reference applies the raw formula regardless, src/lib.rs:613-617.)
+        # sgn(v) == clip(v, -1, 1); both signs are needed because the
+        # wrapping reciprocal multiply can flip sgn(n) against sgn(residual)
         scaled = n + jnp.clip(residual, -1, 1) - jnp.clip(n, -1, 1)
-        # QOA_QUANT_TAB closed form, with the [-8, 8] clamp absorbed:
-        #   idx = min(|scaled| >> 1, 3);  code q = (idx << 1) | (scaled < 0)
-        # (verified against the table for every clamped value; the min
-        # saturates exactly where the clamp would)
+        # QOA_QUANT_TAB closed form with the [-8, 8] clamp absorbed:
+        # idx = min(|scaled| >> 1, 3), code = (idx << 1) | (scaled < 0)
         neg = scaled < 0
         idx = jnp.minimum(jnp.abs(scaled) >> 1, 3)
         q = (idx << 1) | neg.astype(_I32)
@@ -144,24 +119,19 @@ def _window_body(x, length, carry, sfbits, recip, mags):
         recon = jnp.clip(prediction + dq, -32768, 32767)
 
         err = (sample - recon).astype(_U32)
-        err_sq = err * err
-        if active is not None:
-            err_sq = jnp.where(active, err_sq, _U32(0))
-            pen_sq = jnp.where(active, pen_sq, _U32(0))
-        # rank_lo is accumulated BIASED (x ^ 2^31): the bias survives
-        # wrapping adds, and unsigned carry-out becomes one SIGNED compare
-        # (Mosaic lowers u32 compares via the same bias flip; keeping the
-        # accumulator biased does the flip once per window, not per step)
-        lo1 = rank_lo + err_sq.astype(_I32)
+        err_sq = jnp.where(active, err * err, _U32(0))
+        pen_sq = jnp.where(active, pen_sq, _U32(0))
+        lo1 = rank_lo + err_sq
         c1 = (lo1 < rank_lo).astype(_I32)
-        lo2 = lo1 + pen_sq.astype(_I32)
+        lo2 = lo1 + pen_sq
         c2 = (lo2 < lo1).astype(_I32)
         rank_lo = lo2
         rank_hi = rank_hi + c1 + c2
         if k == 0:
             first_lo, first_hi = rank_lo, rank_hi
 
-        qa = (q if active is None else jnp.where(active, q, 0)).astype(_U32)
+        # 3-bit code k lives at u64 bits [57-3k, 59-3k]
+        qa = jnp.where(active, q, 0).astype(_U32)
         if k <= 8:
             word_hi = word_hi | (qa << (25 - 3 * k))
         elif k == 9:
@@ -171,220 +141,101 @@ def _window_body(x, length, carry, sfbits, recip, mags):
             word_lo = word_lo | (qa << (57 - 3 * k))
 
         delta = dq >> 4
-        if active is None:
-            W = [W[t] + jnp.where(H[t] < 0, -delta, delta) for t in range(4)]
-            H = [H[1], H[2], H[3], recon]
-        else:
-            W = [
-                jnp.where(active, W[t] + jnp.where(H[t] < 0, -delta, delta), W[t])
-                for t in range(4)
-            ]
-            H = [
-                jnp.where(active, nxt, H[t])
-                for t, nxt in enumerate([H[1], H[2], H[3], recon])
-            ]
+        W = [
+            jnp.where(active, W[t] + jnp.where(H[t] < 0, -delta, delta), W[t])
+            for t in range(4)
+        ]
+        H = [
+            jnp.where(active, nxt, H[t])
+            for t, nxt in enumerate([H[1], H[2], H[3], recon])
+        ]
 
     # Lexicographic argmin (total, first, sf), ties -> lowest sf, as staged
-    # masked min-reductions over the sublane (candidate) axis — ~6x fewer
-    # ops than the 15-step select chains the XLA kernels use.  (Those exist
-    # because a multi-limb compare chain trips an XLA:CPU codegen cliff;
-    # this kernel is Mosaic/TPU-only, where sublane reductions are cheap.)
-    # (Mosaic has no unsigned reductions: u32 order equals signed order of
-    # the sign-bit-flipped value — and the lo accumulators already LIVE in
-    # that biased domain, so they reduce directly.)
-    rank_lo_s = rank_lo
-    first_lo_s = first_lo
-    ok = rank_hi == jnp.min(rank_hi, axis=0, keepdims=True)
-    m = jnp.min(jnp.where(ok, rank_lo_s, _I32(0x7FFFFFFF)), axis=0, keepdims=True)
-    ok = ok & (rank_lo_s == m)
-    mf = jnp.min(jnp.where(ok, first_hi, _I32(0x7FFFFFFF)), axis=0, keepdims=True)
-    ok = ok & (first_hi == mf)
-    mf = jnp.min(jnp.where(ok, first_lo_s, _I32(0x7FFFFFFF)), axis=0, keepdims=True)
-    ok = ok & (first_lo_s == mf)
-    # exactly-one-hot per chain: the first surviving (lowest) scalefactor
-    # (min-index reduction; Mosaic implements neither cumsum nor u32 mins)
-    sf_idx = jax.lax.broadcasted_iota(_I32, (_NSF, B), 0)
-    min_idx = jnp.min(jnp.where(ok, sf_idx, _I32(_NSF)), axis=0, keepdims=True)
-    pick = sf_idx == min_idx
+    # masked min-reductions over the candidate axis.
+    def row_min(a, fill):
+        return jnp.min(jnp.where(ok, a, fill), axis=1)[:, None]
+
+    ok = rank_hi == jnp.min(rank_hi, axis=1)[:, None]
+    ok = ok & (rank_lo == row_min(rank_lo, _U32(0xFFFFFFFF)))
+    ok = ok & (first_hi == row_min(first_hi, _I32(0x7FFFFFFF)))
+    ok = ok & (first_lo == row_min(first_lo, _U32(0xFFFFFFFF)))
+    pick = s == row_min(s, _I32(_NSF))
 
     def sel(a):
-        v = jnp.where(pick, a.astype(_I32), _I32(0))
-        return jnp.sum(v, axis=0, keepdims=True).astype(a.dtype)
+        return jnp.sum(jnp.where(pick, a, jnp.zeros_like(a)), axis=1)
 
-    bwh, bwl = sel(word_hi), sel(word_lo)
-    bH = [sel(H[t]) for t in range(4)]
-    bW = [sel(W[t]) for t in range(4)]
-
-    new_carry = jnp.concatenate(bH + bW, axis=0)  # (8, B)
-    return new_carry, bwh[0, :], bwl[0, :]
-
-
-def _encode_kernel(W, x_ref, lens_ref, state_in_ref, hi_ref, lo_ref, snaps_ref,
-                   state_out_ref, carry_ref):
-    f = pl.program_id(1)
-
-    @pl.when(f == 0)
-    def _init():
-        carry_ref[:, :] = state_in_ref[:, :]
-
-    # per-frame LMS snapshot (serialized into the frame header by the host)
-    snaps_ref[0] = carry_ref[:, :]
-
-    B = x_ref.shape[3]
-    sfbits, recip, mags = _lane_constants(B)
-
-    def body(w, carry):
-        x = x_ref[0, w].astype(_I32)  # (20, B)
-        length = (
-            None if lens_ref is None else lens_ref[0, w].reshape(1, B)
-        )
-        new_carry, wh, wl = _window_body(x, length, carry, sfbits, recip, mags)
-        hi_ref[0, w] = wh
-        lo_ref[0, w] = wl
-        return new_carry
-
-    carry = jax.lax.fori_loop(0, W, body, carry_ref[:, :])
-    carry_ref[:, :] = carry
-
-    @pl.when(f == pl.num_programs(1) - 1)
-    def _fin():
-        state_out_ref[:, :] = carry_ref[:, :]
-
-
-def _encode_kernel_full(W, x_ref, state_in_ref, hi_ref, lo_ref, snaps_ref,
-                        state_out_ref, carry_ref):
-    """Full-window specialization: every window carries 20 valid samples
-    (true for every frame of a complete file except possibly the last),
-    so the per-sample masking disappears (~15% of the body)."""
-    _encode_kernel(W, x_ref, None, state_in_ref, hi_ref, lo_ref, snaps_ref,
-                   state_out_ref, carry_ref)
-
-
-@functools.partial(jax.jit, static_argnames=("block_lanes",))
-def encode_frames_pallas(state, samples, lens, block_lanes=None):
-    """Pallas analog of ops.encode.encode_frames (same contract).
-
-    state (8, N) int32; samples (F, W, 20, N) int16; lens (F, W, N)
-    int32 (W <= 256 windows per frame; 256 for full frames).  N must be a
-    multiple of 128.  Returns (new_state, snaps (F, 8, N) int32,
-    word_hi, word_lo (F, W, N) uint32).
-
-    ``block_lanes`` (multiple of 128) sets how many chains one grid step
-    carries; several independent 128-chain groups per plane fill the VPU
-    pipeline inside the window recurrence's dependency shadow.
-    """
-    F, W = samples.shape[0], samples.shape[1]
-    N = samples.shape[3]
-    assert N % LANES == 0, "pad the chain axis to a multiple of 128"
-    B = block_lanes or _pick_block(N)
-    assert B % LANES == 0 and N % B == 0
-    n_tiles = N // B
-
-    grid = (n_tiles, F)
-    out_shape = (
-        jax.ShapeDtypeStruct((F, W, N), jnp.uint32),  # hi
-        jax.ShapeDtypeStruct((F, W, N), jnp.uint32),  # lo
-        jax.ShapeDtypeStruct((F, 8, N), jnp.int32),  # snaps
-        jax.ShapeDtypeStruct((8, N), jnp.int32),  # state out
+    new_carry = tuple(sel(H[t]) for t in range(4)) + tuple(
+        sel(W[t]) for t in range(4)
     )
+    return new_carry, sel(word_hi), sel(word_lo)
+
+
+def _encode_kernel(x_ref, lens_ref, state_ref, hi_ref, lo_ref, snaps_ref,
+                   state_out_ref):
+    F, W = x_ref.shape[0], x_ref.shape[1]
+    B = x_ref.shape[3]
+    consts = candidate_constants(B)
+
+    def frame(f, carry):
+        # per-frame LMS snapshot (serialized into the frame header)
+        for i in range(8):
+            snaps_ref[f, i, :] = carry[i]
+
+        def window(w, carry):
+            carry, wh, wl = window_body(
+                lambda k: x_ref[f, w, k, :].astype(_I32),
+                lens_ref[f, w, :],
+                carry,
+                consts,
+            )
+            hi_ref[f, w, :] = wh
+            lo_ref[f, w, :] = wl
+            return carry
+
+        return jax.lax.fori_loop(0, W, window, carry)
+
+    carry = jax.lax.fori_loop(
+        0, F, frame, tuple(state_ref[i, :] for i in range(8))
+    )
+    for i in range(8):
+        state_out_ref[i, :] = carry[i]
+
+
+@functools.partial(jax.jit, static_argnames=("block",))
+def encode_frames_pallas(state, samples, lens, block: int = BLOCK):
+    """Pallas analog of :func:`ops.encode.encode_frames` (same contract).
+
+    state (8, N) int32; samples (F, W, 20, N) int16 or int32; lens
+    (F, W, N) int32, W <= 256 windows per frame.  N must be a multiple of
+    ``block`` (a power of two).  Returns (new_state, snaps (F, 8, N),
+    word_hi, word_lo (F, W, N) uint32).
+    """
+    F, W, _, N = samples.shape
+    assert N % block == 0, f"pad the chain axis to a multiple of {block}"
     hi, lo, snaps, new_state = pl.pallas_call(
-        functools.partial(_encode_kernel, W),
-        grid=grid,
+        _encode_kernel,
+        grid=(N // block,),
         in_specs=[
-            pl.BlockSpec(
-                (1, W, _SLEN, B),
-                lambda t, f: (f, 0, 0, t),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (1, W, B), lambda t, f: (f, 0, t), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec((8, B), lambda t, f: (0, t), memory_space=pltpu.VMEM),
+            pl.BlockSpec((F, W, _SLEN, block), lambda i: (0, 0, 0, i)),
+            pl.BlockSpec((F, W, block), lambda i: (0, 0, i)),
+            pl.BlockSpec((8, block), lambda i: (0, i)),
         ],
         out_specs=(
-            pl.BlockSpec(
-                (1, W, B), lambda t, f: (f, 0, t), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (1, W, B), lambda t, f: (f, 0, t), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (1, 8, B), lambda t, f: (f, 0, t), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec((8, B), lambda t, f: (0, t), memory_space=pltpu.VMEM),
+            pl.BlockSpec((F, W, block), lambda i: (0, 0, i)),
+            pl.BlockSpec((F, W, block), lambda i: (0, 0, i)),
+            pl.BlockSpec((F, 8, block), lambda i: (0, 0, i)),
+            pl.BlockSpec((8, block), lambda i: (0, i)),
         ),
-        out_shape=out_shape,
-        scratch_shapes=[pltpu.VMEM((8, B), jnp.int32)],
-        compiler_params=_COMPILER_PARAMS,
+        out_shape=(
+            jax.ShapeDtypeStruct((F, W, N), _U32),
+            jax.ShapeDtypeStruct((F, W, N), _U32),
+            jax.ShapeDtypeStruct((F, 8, N), _I32),
+            jax.ShapeDtypeStruct((8, N), _I32),
+        ),
+        compiler_params=plgpu.CompilerParams(
+            num_warps=max(1, block * _NSF // 32), num_stages=1
+        ),
+        backend="triton",
+        name="qoa_encode",
     )(samples, lens, state)
     return new_state, snaps, hi, lo
-
-
-@functools.partial(jax.jit, static_argnames=("block_lanes",))
-def encode_frames_pallas_full(state, samples, block_lanes=None):
-    """Full-window variant of :func:`encode_frames_pallas` (no ``lens``):
-    every window of every frame must carry 20 valid samples.  Same
-    contract otherwise; bit-identical to the masked kernel on full
-    windows, ~15% faster (the per-sample masking drops out).
-    """
-    F, W = samples.shape[0], samples.shape[1]
-    N = samples.shape[3]
-    assert N % LANES == 0, "pad the chain axis to a multiple of 128"
-    B = block_lanes or _pick_block(N)
-    assert B % LANES == 0 and N % B == 0
-    n_tiles = N // B
-
-    grid = (n_tiles, F)
-    out_shape = (
-        jax.ShapeDtypeStruct((F, W, N), jnp.uint32),  # hi
-        jax.ShapeDtypeStruct((F, W, N), jnp.uint32),  # lo
-        jax.ShapeDtypeStruct((F, 8, N), jnp.int32),  # snaps
-        jax.ShapeDtypeStruct((8, N), jnp.int32),  # state out
-    )
-    hi, lo, snaps, new_state = pl.pallas_call(
-        functools.partial(_encode_kernel_full, W),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(
-                (1, W, _SLEN, B),
-                lambda t, f: (f, 0, 0, t),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec((8, B), lambda t, f: (0, t), memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec(
-                (1, W, B), lambda t, f: (f, 0, t), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (1, W, B), lambda t, f: (f, 0, t), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (1, 8, B), lambda t, f: (f, 0, t), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec((8, B), lambda t, f: (0, t), memory_space=pltpu.VMEM),
-        ),
-        out_shape=out_shape,
-        scratch_shapes=[pltpu.VMEM((8, B), jnp.int32)],
-        compiler_params=_COMPILER_PARAMS,
-    )(samples, state)
-    return new_state, snaps, hi, lo
-
-
-def _pick_block(N: int) -> int:
-    """Default chain-block width: 256 lanes when N allows (measured optimum
-    on v5e — two independent 128-chain groups fill the VPU pipeline inside
-    the window recurrence's dependency shadow; 512 is slightly slower from
-    VMEM pressure), else the widest 128-multiple dividing N."""
-    for b in (256, 512, 384, 128):
-        if N % b == 0:
-            return b
-    return LANES
-
-
-def available() -> bool:
-    """True when a TPU backend is present (Pallas/Mosaic requires one)."""
-    try:
-        return jax.devices()[0].platform == "tpu"
-    except Exception:
-        return False

@@ -5,7 +5,8 @@ Public surface:
 * :func:`batch_encode` / :func:`batch_decode` — many files in one batched
   chain axis, optionally sharded over a ``jax.sharding.Mesh``.
 * :func:`batch_transcode` — decode -> on-device re-layout -> encode with
-  PCM HBM-resident end to end (only compressed data crosses the link).
+  PCM device-resident end to end (only compressed data crosses the
+  host<->device link).
 * :func:`transcode_corpus` — file-level decode/re-encode/verify driver.
 * :func:`make_mesh` — 1-D data-parallel mesh over the available devices.
 """

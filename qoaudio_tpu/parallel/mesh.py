@@ -1,18 +1,22 @@
-"""Device-mesh sharding for multi-chip corpus transcode.
+"""Device-mesh sharding for multi-device corpus transcode.
 
 The QOA workload is embarrassingly parallel across files/channels
 (SURVEY.md §2.2): the chain axis N of the codec kernels shards over a 1-D
-``jax.sharding.Mesh`` with no algorithmic point-to-point communication —
-XLA partitions the elementwise work and only throughput statistics are
-all-gathered.  Shardings ride ICI; there is no NCCL/MPI analog to port
-(the reference is single-threaded scalar Rust).
+``jax.sharding.Mesh`` and each device runs the kernel on its own chain
+shard under ``jax.shard_map`` (for encode, the platform's kernel:
+:func:`qoaudio_tpu.ops.encode_kernel`).  No collectives: chains never
+talk to each other.
 """
 
 from __future__ import annotations
 
+import functools
+
 import jax
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+from ..ops import encode_kernel
 
 DATA_AXIS = "data"
 
@@ -26,7 +30,11 @@ def make_mesh(n_devices: int | None = None, devices=None) -> Mesh:
     return Mesh(np.asarray(devices), (DATA_AXIS,))
 
 
-def _spec_for_rank(rank: int) -> P:
+def mesh_platform(mesh: Mesh) -> str:
+    return mesh.devices.flat[0].platform
+
+
+def _chains_last(rank: int) -> P:
     """PartitionSpec sharding only the last (chain) axis."""
     return P(*([None] * (rank - 1) + [DATA_AXIS]))
 
@@ -36,92 +44,64 @@ def shard_chain_arrays(mesh: Mesh, *arrays):
 
     The chain axis must be divisible by the mesh size (pad first).
     """
-    out = []
-    for a in arrays:
-        spec = _spec_for_rank(np.ndim(a))
-        out.append(jax.device_put(a, NamedSharding(mesh, spec)))
-    return tuple(out)
+    return tuple(
+        jax.device_put(a, NamedSharding(mesh, _chains_last(np.ndim(a))))
+        for a in arrays
+    )
 
 
 def round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
+def encode_multiple(mesh: Mesh) -> int:
+    """Encode chain-axis padding multiple for a mesh: the kernel's own
+    multiple on every device."""
+    return encode_kernel(mesh_platform(mesh))[1] * mesh.size
+
+
+_WORDS = P(None, DATA_AXIS, None)  # (W, N, 2) raw slice words
+
+
+@functools.lru_cache(maxsize=16)
+def _sharded(mesh: Mesh, op: str):
+    """One jitted ``shard_map`` per mesh and op, so repeated calls reuse
+    the compiled executable."""
+    if op == "encode":
+        fn, _ = encode_kernel(mesh_platform(mesh))
+        in_specs = (_chains_last(2), _chains_last(4), _chains_last(3))
+        out_specs = (
+            _chains_last(2), _chains_last(3), _chains_last(3), _chains_last(3)
+        )
+    else:
+        from ..ops.decode import decode_chains as fn
+
+        in_specs, out_specs = (_chains_last(2), _WORDS), _chains_last(3)
+    return jax.jit(
+        jax.shard_map(
+            fn, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
+            check_vma=False,
+        )
+    )
+
+
 def encode_frames_sharded(mesh: Mesh, state, samples, lens):
-    """Run the encoder kernel with all operands sharded over chains.
+    """The platform's encode kernel, one chain shard per device.
 
-    state (8, N), samples (F, 256, 20, N), lens (F, 256, N); N must be a
-    multiple of the mesh size.  Compiles to per-device partitions with no
-    cross-device collectives in the hot loop.
+    state (8, N), samples (F, W, 20, N), lens (F, W, N); N must be a
+    multiple of ``encode_multiple(mesh)``.
     """
-    from ..ops.encode import encode_frames
-
-    state, samples, lens = shard_chain_arrays(mesh, state, samples, lens)
-    return encode_frames(state, samples, lens)
-
-
-def decode_chains_sharded(mesh: Mesh, state, sf, codes):
-    """Run the decoder kernel with all operands sharded over chains."""
-    from ..ops.decode import decode_chains
-
-    state, sf, codes = shard_chain_arrays(mesh, state, sf, codes)
-    return decode_chains(state, sf, codes)
-
-
-def decode_chains_pallas_sharded(mesh: Mesh, state, hi, lo, subs, wblk):
-    """Pallas decoder under shard_map: each device decodes its local chain
-    shard (N must be a multiple of subs * 128 * mesh.size).  Like the
-    encoder, the workload needs no cross-device communication."""
-    try:
-        from jax import shard_map
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
-
-    import functools
-
-    from ..ops.pallas_decode import decode_chains_pallas
-
-    fn = functools.partial(decode_chains_pallas, subs=subs, wblk=wblk)
-    chain = P(None, DATA_AXIS)
-    kwargs = dict(
-        mesh=mesh,
-        in_specs=(chain, chain, chain),
-        out_specs=P(None, None, DATA_AXIS),
+    return _sharded(mesh, "encode")(
+        *shard_chain_arrays(mesh, state, samples, lens)
     )
-    try:
-        wrapped = shard_map(fn, check_vma=False, **kwargs)
-    except TypeError:  # older jax spells the replication check differently
-        wrapped = shard_map(fn, check_rep=False, **kwargs)
-    state, hi, lo = shard_chain_arrays(mesh, state, hi, lo)
-    return wrapped(state, hi, lo)
 
 
-def encode_frames_pallas_sharded(mesh: Mesh, state, samples, lens):
-    """Pallas encoder under shard_map: each device runs the Mosaic kernel
-    on its local chain shard (N must be a multiple of 128 * mesh.size).
+def decode_chains_sharded(mesh: Mesh, state, words):
+    """The decode kernel, one chain shard per device.
 
-    The workload needs no cross-device communication — shard_map simply
-    pins the per-device kernel launches (SPMD over ICI); collectives would
-    only appear in surrounding reductions (e.g. corpus stats).
+    state (8, N), words (W, N, 2) raw slice words; N must be a multiple
+    of the mesh size.  Returns (W, 20, N) sharded over N.
     """
-    try:
-        from jax import shard_map
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
-
-    from ..ops.pallas_encode import encode_frames_pallas
-
-    chain = P(None, DATA_AXIS)
-    x_spec = P(None, None, None, DATA_AXIS)
-    l_spec = P(None, None, DATA_AXIS)
-    kwargs = dict(
-        mesh=mesh,
-        in_specs=(chain, x_spec, l_spec),
-        out_specs=(chain, P(None, None, DATA_AXIS), l_spec, l_spec),
-    )
-    try:
-        fn = shard_map(encode_frames_pallas, check_vma=False, **kwargs)
-    except TypeError:  # older jax spells the replication check differently
-        fn = shard_map(encode_frames_pallas, check_rep=False, **kwargs)
-    state, samples, lens = shard_chain_arrays(mesh, state, samples, lens)
-    return fn(state, samples, lens)
+    (state,) = shard_chain_arrays(mesh, state)
+    words = jax.device_put(words, NamedSharding(mesh, _WORDS))
+    return _sharded(mesh, "decode")(state, words)

@@ -14,7 +14,7 @@ implementation's semantics operation-for-operation:
 
 The scalar encoder keeps the *original sequential* search shape on purpose:
 it independently validates the parallel argmin + lexicographic tie-break
-reformulation used by the TPU kernels.
+reformulation used by the device kernels.
 """
 
 from __future__ import annotations

@@ -100,7 +100,7 @@ class QoaDecoder:
                  prefetch: Optional[bool] = None):
         """``readahead``: frames decoded per staging batch.  Frames are
         decode-parallel (each carries its LMS seed), so staging many at once
-        costs the same wall time as one — the TPU-idiomatic default.  Use
+        costs the same wall time as one — the batch-friendly default.  Use
         ``readahead=1`` for strict frame-at-a-time IO.
 
         ``backend``: "auto" (native host engine, falling back to numpy),

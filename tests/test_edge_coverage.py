@@ -299,6 +299,27 @@ def test_build_returns_none_without_source(monkeypatch):
     assert native._build() is None
 
 
+def test_library_key_follows_cpu_source_and_flags(monkeypatch, tmp_path):
+    """The library's name is keyed on the CPU identity, the source and
+    the flag tiers: a library built on another machine (or from another
+    source) sits under another name and is rebuilt, never loaded."""
+    src = tmp_path / "k.cpp"
+    src.write_text("int x;\n")
+    monkeypatch.setattr(native, "_SRC", str(src))
+    monkeypatch.setattr(native, "_LIB_DIR", str(tmp_path))
+    assert native.cpu_model() in native.cpu_identity()
+    here = native._lib_path()
+    assert os.path.dirname(here) == str(tmp_path)
+    assert native._lib_path() == here  # stable
+    monkeypatch.setattr(native, "cpu_identity", lambda: "Other CPU | avx2")
+    other_cpu = native._lib_path()
+    assert other_cpu != here
+    monkeypatch.setattr(native, "_FLAG_TIERS", (("-O1",),))
+    assert native._lib_path() != other_cpu
+    src.write_text("int y;\n")
+    assert native._lib_path() not in (here, other_cpu)
+
+
 def test_load_marks_failed_when_build_fails(monkeypatch):
     monkeypatch.setattr(native, "_build", lambda force=False: None)
     monkeypatch.setattr(native, "_lib", None)
@@ -325,17 +346,16 @@ long qoa_encode_fallbacks() { return 0; }
 
 
 def test_torn_library_rebuilds_and_recovers(monkeypatch, tmp_path):
-    """A torn/garbage .so with a NEWER mtime than the source (interrupted
-    build, partial copy): CDLL fails with OSError, the loader rebuilds
-    once from source and recovers.  All loader globals are patched, so the
-    real engine is untouched."""
+    """A torn/garbage .so at the library's keyed path (interrupted copy or
+    build): _build() trusts the existing file, CDLL fails with OSError,
+    the loader rebuilds once from source and recovers.  All loader
+    globals are patched, so the real engine is untouched."""
     src = tmp_path / "stub.cpp"
     src.write_text(_STUB_SRC)
-    so = tmp_path / "stub.so"
-    so.write_bytes(b"\x7fELF garbage, not a real object")
-    os.utime(str(so))  # newer than the source: _build() trusts it as fresh
     monkeypatch.setattr(native, "_SRC", str(src))
-    monkeypatch.setattr(native, "_LIB_PATH", str(so))
+    monkeypatch.setattr(native, "_LIB_DIR", str(tmp_path))
+    with open(native._lib_path(), "wb") as f:
+        f.write(b"\x7fELF garbage, not a real object")
     monkeypatch.setattr(native, "_lib", None)
     monkeypatch.setattr(native, "_build_failed", False)
     lib = native._load()
@@ -378,14 +398,21 @@ def test_relayout_encode_input_matches_dense_reference():
 
 
 def test_stage_word_halves_matches_logical_words():
+    """The one decode staging format: raw big-endian words staged per
+    file, viewed as u32 halves and byte-swapped on the device, give the
+    logical slice words; padding stays zero."""
+    from qoaudio_tpu.ops.decode import word_halves, words_u32
     from qoaudio_tpu.parallel import corpus
 
     p = bs.parse_file_arrays(_ragged_stream([400, 400], channels=2))
     assert p is not None
     k = p.n_frames * p.channels
-    Wp, Np = p.max_windows + 3, k + 5  # padded like the Pallas staging
-    hi, lo, state = corpus._stage_word_halves([p], [0], Wp, Np)
-    logical = corpus._logical_words(p.words_be)
+    Wp, Np = p.max_windows + 3, k + 5  # padded like a kernel block
+    words_be, state = corpus._stage_words([p], [0], Wp, Np)
+    raw = words_u32(words_be)
+    assert raw.shape == (Wp, Np, 2) and np.shares_memory(raw, words_be)
+    hi, lo = (np.asarray(a) for a in word_halves(raw[..., 0], raw[..., 1]))
+    logical = p.words_be.view(np.uint64).byteswap()
     got = (hi[: p.max_windows, :k].astype(np.uint64) << np.uint64(32)) | lo[
         : p.max_windows, :k
     ].astype(np.uint64)
@@ -607,27 +634,3 @@ def test_decode_pending_after_partial_iteration_numpy_backend():
     assert got_head == [int(v) for v in want[:5]]
     rest = dec.decode_pending()
     assert np.array_equal(rest, want[5:])
-
-
-def test_pallas_tile_pickers_and_cpu_availability():
-    """The pure tile/block pickers behind both Mosaic kernels, and the
-    availability probes: largest decode tile not exceeding the batch
-    (floor config below the minimum), the measured 256-lane encode block
-    optimum, and available() == False (not an exception) on the
-    CPU-forced suite."""
-    from qoaudio_tpu.ops import pallas_decode as pd
-    from qoaudio_tpu.ops import pallas_encode as pe
-
-    assert pd.pick_tile(32 * 128) == (32, 32)
-    assert pd.pick_tile(33 * 128) == (32, 32)
-    assert pd.pick_tile(16 * 128) == (16, 32)
-    assert pd.pick_tile(8 * 128) == (8, 64)
-    assert pd.pick_tile(1) == (8, 64)  # floor: tiny batches pad up
-
-    assert pe._pick_block(256) == 256   # two 128-chain groups (optimum)
-    assert pe._pick_block(512) == 256
-    assert pe._pick_block(384) == 384   # 256 doesn't divide; 384 does
-    assert pe._pick_block(128) == 128
-
-    assert pd.available() is False
-    assert pe.available() is False

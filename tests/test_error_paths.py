@@ -180,21 +180,6 @@ def test_streaming_mode_singleton_dunders():
     assert s1 != FixedSamples(2, 44100, 10)
 
 
-def test_fetch_arrays_numpy_passthrough():
-    """Host numpy arrays (and tiny device arrays) fetch directly."""
-    from qoaudio_tpu.utils.transfer import fetch_array, fetch_arrays
-
-    a = np.arange(12, dtype=np.int32)
-    b = np.zeros((3, 4), dtype=np.int16)
-    out = fetch_arrays([a, b])
-    assert out[0] is a or np.array_equal(out[0], a)
-    assert np.array_equal(out[1], b)
-    import jax.numpy as jnp
-
-    d = jnp.arange(8)
-    assert np.array_equal(fetch_array(d), np.arange(8))
-
-
 def _ragged_stream(lens, channels=1, rate=44100):
     """Fixed-mode stream with partial INTERIOR frames (legal per
     src/lib.rs:54-57): frame i carries lens[i] samples/channel."""

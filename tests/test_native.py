@@ -188,14 +188,14 @@ def test_build_degrades_gracefully_without_toolchain(monkeypatch):
 
     monkeypatch.setattr(nat.subprocess, "run", no_gxx)
     assert nat._build(force=True) is None
-    assert not glob.glob(nat._LIB_PATH + ".*.tmp")
+    assert not glob.glob(nat._lib_path() + ".*.tmp")
 
     def hung(cmd, **kw):
         raise sp.TimeoutExpired(cmd, 1)
 
     monkeypatch.setattr(nat.subprocess, "run", hung)
     assert nat._build(force=True) is None
-    assert not glob.glob(nat._LIB_PATH + ".*.tmp")
+    assert not glob.glob(nat._lib_path() + ".*.tmp")
 
     def bad_compile(cmd, **kw):
         class R:
@@ -205,12 +205,12 @@ def test_build_degrades_gracefully_without_toolchain(monkeypatch):
 
     monkeypatch.setattr(nat.subprocess, "run", bad_compile)
     assert nat._build(force=True) is None
-    assert not glob.glob(nat._LIB_PATH + ".*.tmp")
+    assert not glob.glob(nat._lib_path() + ".*.tmp")
 
 
 def test_stale_library_without_symbols_degrades(monkeypatch, tmp_path):
-    """A leftover .so from an older package version (newer mtime, missing
-    the current symbols) must force one rebuild and then degrade to
+    """A library missing the current symbols (a source that no longer
+    matches the bindings) must force one rebuild and then degrade to
     available() == False — never raise out of the loader.  All loader
     globals are monkeypatched, so the real engine is untouched."""
     from qoaudio_tpu import native as nat
@@ -218,7 +218,7 @@ def test_stale_library_without_symbols_degrades(monkeypatch, tmp_path):
     src = tmp_path / "dummy.cpp"
     src.write_text('extern "C" int qoa_nothing(void) { return 0; }\n')
     monkeypatch.setattr(nat, "_SRC", str(src))
-    monkeypatch.setattr(nat, "_LIB_PATH", str(tmp_path / "dummy.so"))
+    monkeypatch.setattr(nat, "_LIB_DIR", str(tmp_path))
     monkeypatch.setattr(nat, "_lib", None)
     monkeypatch.setattr(nat, "_build_failed", False)
     assert nat._load() is None  # builds, binds fail, rebuilds, gives up

@@ -18,6 +18,7 @@ import pytest
 from qoaudio_tpu import codec
 from qoaudio_tpu import format as fmt
 from qoaudio_tpu import reference as ref
+from qoaudio_tpu.ops.decode import words_u32
 from qoaudio_tpu.parallel.corpus import batch_encode, transcode_corpus
 from qoaudio_tpu.parallel.mesh import (
     decode_chains_sharded,
@@ -103,15 +104,8 @@ def test_decode_chains_sharded(fixture_bytes):
     parsed = bs.parse_file(fixture_bytes)
     batch = bs.stack_frames(parsed.frames[:8])
     F, W, C = batch.sf.shape
-    N = F * C  # 16 chains over 8 devices
-    state = np.zeros((8, N), np.int32)
-    state[0:4] = batch.history.reshape(N, 4).T
-    state[4:8] = batch.weights.reshape(N, 4).T
-    sf = batch.sf.transpose(1, 0, 2).reshape(W, N).astype(np.int32)
-    codes = (
-        batch.codes.transpose(1, 3, 0, 2).reshape(W, 20, N).astype(np.int32)
-    )
-    got = np.asarray(decode_chains_sharded(mesh, state, sf, codes))
+    words_be, state = bs.batch_chain_arrays(batch)  # 16 chains
+    got = np.asarray(decode_chains_sharded(mesh, state, words_u32(words_be)))
     want = ref.decode_batch_np(batch)  # (F, W*20, C)
     got = got.reshape(W, 20, F, C).transpose(2, 0, 1, 3).reshape(F, W * 20, C)
     assert np.array_equal(got, want)
@@ -387,66 +381,6 @@ def test_transcode_fused_cache_reuse():
     assert first == second
     assert mid == after  # second call hit the cache
     assert mid >= before  # first call may have added (or reused) an entry
-
-
-def test_fetch_arrays_chunked_bit_exact(monkeypatch):
-    # force the chunked-concurrent path on CPU arrays: results must be
-    # byte-identical to a direct fetch for 1-D and N-D shapes
-    import jax.numpy as jnp
-
-    from qoaudio_tpu.utils import transfer
-
-    monkeypatch.setattr(transfer, "_chunkable", lambda a: hasattr(a, "devices") and a.ndim >= 1 and a.shape[0] >= 2)
-    monkeypatch.setattr(transfer, "_CHUNK_BYTES", 1 << 10)
-    rng = np.random.default_rng(5)
-    a1 = jnp.asarray(rng.integers(-2**31, 2**31 - 1, 100_001, dtype=np.int64).astype(np.int32))
-    a2 = jnp.asarray(rng.integers(0, 2**16, (37, 129), dtype=np.int64).astype(np.uint16))
-    a3 = np.arange(7)  # plain numpy passes through
-    o1, o2, o3 = transfer.fetch_arrays([a1, a2, a3])
-    assert np.array_equal(o1, np.asarray(a1))
-    assert np.array_equal(o2, np.asarray(a2))
-    assert np.array_equal(o3, a3)
-
-
-def test_put_arrays_chunked_bit_exact(monkeypatch):
-    # force the chunked-concurrent upload path on the CPU backend: the
-    # device-side row concat must reassemble every array bit-identically,
-    # mixed with pass-through (small / device-resident) entries
-    import jax.numpy as jnp
-
-    from qoaudio_tpu.utils import transfer
-
-    monkeypatch.setattr(
-        transfer,
-        "_put_chunkable",
-        lambda a, platform: isinstance(a, np.ndarray)
-        and a.ndim >= 1
-        and a.shape[0] >= 2,
-    )
-    monkeypatch.setattr(transfer, "_PUT_CHUNK_BYTES", 1 << 10)
-    rng = np.random.default_rng(7)
-    a1 = rng.integers(-(2**31), 2**31 - 1, 100_001, dtype=np.int64).astype(
-        np.int32
-    )
-    a2 = rng.integers(0, 2**16, (37, 129), dtype=np.int64).astype(np.uint16)
-    a3 = np.arange(1)  # single row: pass-through
-    a4 = jnp.arange(5)  # already on device: pass-through
-    o1, o2, o3, o4 = transfer.put_arrays([a1, a2, a3, a4])
-    assert np.array_equal(np.asarray(o1), a1)
-    assert np.array_equal(np.asarray(o2), a2)
-    assert np.array_equal(np.asarray(o3), a3)
-    assert np.array_equal(np.asarray(o4), np.asarray(a4))
-
-
-def test_put_arrays_env_optout(monkeypatch):
-    # QOA_NO_CHUNKED_PUT must force the plain device_put path
-    from qoaudio_tpu.utils import transfer
-
-    monkeypatch.setenv("QOA_NO_CHUNKED_PUT", "1")
-    a = np.zeros((64, 4096), np.int32)
-    assert not transfer._put_chunkable(a, "tpu")
-    out = transfer.put_array(a)
-    assert np.array_equal(np.asarray(out), a)
 
 
 def test_batch_transcode_random_corpora_property():
